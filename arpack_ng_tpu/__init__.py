@@ -1,8 +1,8 @@
-"""arpack_ng_tpu: a TPU-native large-scale eigensolver framework with the
-capabilities of arpack-ng (FabienPean/arpack-ng) — Implicitly Restarted
+"""arpack_ng_tpu: a GPU-accelerated large-scale eigensolver framework with
+the capabilities of arpack-ng (FabienPean/arpack-ng) — Implicitly Restarted
 Arnoldi/Lanczos for symmetric, non-symmetric and complex standard and
 generalized eigenproblems, shift-invert/buckling/Cayley spectral transforms,
-and SVD — redesigned for JAX/XLA/Pallas on TPU:
+and SVD — redesigned for JAX/XLA on an accelerator:
 
 * operator callables instead of the Fortran reverse-communication interface,
 * one dtype-parametric core instead of the s/d/c/z source quadruplication,
@@ -32,15 +32,28 @@ from .ops.operator import Operator, from_dense, from_diagonal, from_matvec
 __version__ = "0.5.0"
 
 
-def enable_compile_cache(path: str = ".jax_cache") -> None:
-    """Enable JAX's persistent compilation cache (strongly recommended on
-    remote-attached TPUs where a fused-solver compile can take minutes;
-    subsequent runs with the same shapes start instantly)."""
+def enable_compile_cache() -> str:
+    """Enable JAX's persistent compilation cache and return its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its
+    cache there and no other path is set.  Otherwise the cache goes to
+    ``.jax_cache`` at the root of this checkout (next to the package), a
+    fixed path so that later runs find what earlier ones compiled.
+    """
+    import os
+
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            ".jax_cache")
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    return path
+
 
 __all__ = [
     "ArpackError",

@@ -82,8 +82,8 @@ def _resolve_storage(storage_dtype, dtype, tol, pro_active=False):
     requested tolerance permits it.
 
     bf16 storage halves the dominant HBM-traffic term of the full-CGS
-    paths (V streams) at a measured accuracy floor of ~0.8% relative
-    (~2*eps(bf16)*||A||, docs/PERF.md) — so it is enabled automatically
+    paths (V streams) at an accuracy floor of ~0.8% relative
+    (~2*eps(bf16)*||A||) — so it is enabled automatically
     only for real float32 problems whose tol is comfortably above that
     floor.  When partial-reorthogonalization Lanczos is active
     (``pro_active``) the basis is no longer streamed every step, so narrow
@@ -108,12 +108,10 @@ def _resolve_sym_reorth(reorth: str, restart: str) -> str:
     Symmetric problems run Lanczos, where semi-orthogonality provably
     preserves eps-level Ritz accuracy (Simon 1984) — partial
     reorthogonalization ('selective') is the default and removes the
-    dominant V-traffic term (docs/PERF.md round-2).  Since round 5 this
-    holds for ``restart='thick'`` too: the fused tail re-tridiagonalizes
-    the kept block (core/device_sym._retridiagonalize), so the
-    three-term omega recurrence stays valid across thick restarts (the
-    round-3 "thick degenerates to full reorth" measurement predates the
-    re-tridiagonalization)."""
+    dominant V-traffic term.  This holds for ``restart='thick'`` too:
+    the fused tail re-tridiagonalizes the kept block
+    (core/device_sym._retridiagonalize), so the three-term omega
+    recurrence stays valid across thick restarts."""
     if reorth == "auto":
         return "selective"
     return reorth
@@ -138,8 +136,8 @@ def _make_solver(op, cfg, shift_fn=None, mesh=None, strategy="auto"):
 
 
 class PseudospectrumWarning(UserWarning):
-    """Single-precision non-normal eigenproblem caveat (docs/PERF.md
-    round-4): residual-converged Ritz values of a non-normal operator
+    """Single-precision non-normal eigenproblem caveat:
+    residual-converged Ritz values of a non-normal operator
     solved in f32 may lie in the operator's eps_f32-pseudospectrum —
     up to ~``eta*||A||`` OUTSIDE the true spectrum — while genuinely
     satisfying their residual bound (which is all any Krylov method can
@@ -149,8 +147,8 @@ class PseudospectrumWarning(UserWarning):
 @dataclasses.dataclass
 class F64Validation:
     """Report of ``eigs(..., validate='f64')``: the converged pairs
-    re-applied through a float64 operator (verdict: productized from the
-    docs/PERF.md round-4 pseudospectrum finding)."""
+    re-applied through a float64 operator (see
+    :class:`PseudospectrumWarning`)."""
 
     residuals: np.ndarray      # ||A v - lambda (M) v||_2 per pair, f64
     rel_residuals: np.ndarray  # scaled by max(eps23, |lambda|) (dsconv)
@@ -221,8 +219,8 @@ def _f64_validate(A_raw, M_raw, out, cfg, matvec64=None):
             f"tolerance under a float64 operator (max relative residual "
             f"{float(np.max(rel)):.3e} > tol {tol_bar:.1e}); the f32 "
             "matvec's backward error placed them in the operator's "
-            "eps_f32-pseudospectrum — re-solve with an f64 operator "
-            "(docs/PERF.md round-4)", PseudospectrumWarning, stacklevel=4)
+            "eps_f32-pseudospectrum — re-solve with an f64 operator",
+            PseudospectrumWarning, stacklevel=4)
     elif single and not (nonnorm != nonnorm) and nonnorm > 1e-6:
         warnings.warn(
             "operator is non-normal (probe "
@@ -231,7 +229,7 @@ def _f64_validate(A_raw, M_raw, out, cfg, matvec64=None):
             "OUTSIDE the spectrum (eps_f32-pseudospectrum; max f64 "
             f"relative residual {float(np.max(rel)):.3e}).  Interpret "
             "f32 results as pseudospectral or re-solve with an f64 "
-            "operator (docs/PERF.md round-4)",
+            "operator",
             PseudospectrumWarning, stacklevel=4)
     return rep
 
@@ -293,7 +291,6 @@ def eigsh(
     mesh=None,
     strategy: str = "auto",
     storage_dtype="auto",
-    cgs_kernel: str = "auto",
     restart: str = "implicit",
     reorth: str = "auto",
     select=None,
@@ -348,7 +345,7 @@ def eigsh(
         tol=tol, max_iter=maxiter if maxiter is not None else 10 * n,
         symmetric=True, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
         exact_shifts=shift_fn is None, storage_dtype=storage_dtype,
-        cgs_kernel=cgs_kernel, restart=restart, reorth=reorth)
+        restart=restart, reorth=reorth)
     return _solve(op, cfg, v0, return_eigenvectors, return_stats,
                   shift_fn=shift_fn, mesh=mesh, strategy=strategy,
                   select=select, validate=validate,
@@ -374,7 +371,6 @@ def eigs(
     seed: int = 0,
     mesh=None,
     strategy: str = "auto",
-    cgs_kernel: str = "auto",
     reorth: str = "auto",
     select=None,
     validate=None,
@@ -386,7 +382,7 @@ def eigs(
     (``return_stats``), and emit a :class:`PseudospectrumWarning` when
     the pairs miss the requested tolerance at f64 fidelity or the
     operator is detectably non-normal in a single-precision solve — the
-    productized form of the docs/PERF.md round-4 finding that f32
+    productized form of the finding that f32
     residual-converged values of non-normal operators can sit
     ~eta*||A|| outside the spectrum.  Requires a concrete matrix input
     (dense / scipy sparse); for matrix-free problems pass a callable
@@ -427,21 +423,20 @@ def eigs(
         n=n, nev=k, ncv=min(ncv, n), which=which, bmat=op.bmat, mode=op.mode,
         tol=tol, max_iter=maxiter if maxiter is not None else 10 * n,
         symmetric=False, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
-        cgs_kernel=cgs_kernel, reorth=reorth)
+        reorth=reorth)
     if (strategy == "auto"
             and not np.issubdtype(np.dtype(op.dtype), np.complexfloating)):
         # real problems default to the fused real-arithmetic device loop
-        # (2.9x over the hybrid host split on TPU, and it runs on
-        # complex-incapable backends); validated identical to the hybrid
-        # on standard, generalized and shift-invert problems.  Complex
-        # dtypes keep the reference-faithful hybrid by default.
+        # (no host round trip per cycle, real arithmetic only); validated
+        # identical to the hybrid on standard, generalized and
+        # shift-invert problems.  Complex dtypes keep the
+        # reference-faithful hybrid by default.
         strategy = "fused_real"
     if strategy == "fused":
         from .core.device_nonsym import (FusedNonsymSolver,
                                          complexify_operator)
         op = complexify_operator(op)
-        # preserve every config field (incl. cgs_kernel, which the
-        # complex-dtype validation in make_extend then vets)
+        # preserve every other config field
         cfg = dataclasses.replace(cfg, dtype=np.dtype(op.dtype))
         solver = FusedNonsymSolver(op, cfg, mesh=mesh)
     elif strategy == "fused_real":

@@ -23,7 +23,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="arpack_ng_tpu.cli",
-        description="TPU-native eigensolver CLI (arpackmm equivalent)")
+        description="eigensolver CLI (arpackmm equivalent)")
     p.add_argument("--A", required=True, help="MatrixMarket file for A")
     p.add_argument("--B", default=None, help="MatrixMarket file for B/M")
     p.add_argument("--nonSymPb", action="store_true",

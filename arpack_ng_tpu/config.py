@@ -56,8 +56,8 @@ class IRAMConfig:
     #   (e.g. jnp.bfloat16): V is stored narrow, every contraction
     #   accumulates in `dtype` (preferred_element_type) — halves the
     #   dominant HBM traffic of the orthogonalization at a documented
-    #   accuracy cost (residual floor ~ ||A|| * eps(storage)).  A TPU-
-    #   native capability with no reference equivalent.
+    #   accuracy cost (residual floor ~ ||A|| * eps(storage)).  A
+    #   capability with no reference equivalent.
     restart: str = "implicit"   # symmetric fused-path restart scheme:
     #   'implicit' (the reference's exact-shift QR bulge chase, dsapps)
     #   or 'thick' (thick-restart Lanczos / Krylov-Schur class: keep the
@@ -65,19 +65,16 @@ class IRAMConfig:
     #   coupling — mathematically equivalent to implicit restarts with
     #   exact shifts [Wu & Simon 2000], numerically exact where the f32
     #   QR chase accumulates rounding, and cheaper on device: one basis
-    #   GEMM instead of an np-step scan of QR factorizations).  Caveat:
-    #   the arrowhead H left by a thick restart breaks the three-term
-    #   omega-recurrence model, so reorth='selective' degenerates to a
-    #   full reorthogonalization every step — measured 2.8x slower than
-    #   implicit+selective at n=1M (docs/PERF.md round-3); prefer
-    #   'implicit' unless bulge-chase rounding is the concern.
+    #   GEMM instead of an np-step scan of QR factorizations).  The fused
+    #   tail re-tridiagonalizes the kept block, so the selective-reorth
+    #   omega model stays valid (core/device_sym._retridiagonalize).
     reorth: str = "dgks"        # refinement-trigger policy for the Arnoldi
     #   step's iterative reorthogonalization:
     #   'dgks'      — the reference's test: refine whenever the CGS pass
     #                 shed more than a factor 0.717 of the norm
     #                 (SRC/dsaitr.f:656).  Safe but fires on most steps of
-    #                 well-conditioned problems (measured ~82% on the 2-D
-    #                 Laplacian flagship, docs/PERF.md) — each firing costs
+    #                 well-conditioned problems (most steps of the 2-D
+    #                 Laplacian flagship) — each firing costs
     #                 two extra full passes over V on a V-bandwidth-bound
     #                 solver.
     #   'selective' — refine only when one CGS pass cannot guarantee
@@ -98,15 +95,8 @@ class IRAMConfig:
     #              construction) AND the previous carrier v_j's omega row
     #              is below eta_sub everywhere — then the -beta_j*w_{j,i}
     #              feedback term cannot re-inject a super-eta defect and
-    #              the paired event buys nothing (round-4 verdict #6 A/B;
-    #              value-checked by tests/test_reorth.py basis-defect
-    #              property test).
-    cgs_kernel: str = "auto"    # orthogonalization-pass backend:
-    #   'auto'/'xla' (bucketed masked contractions — the measured
-    #   end-to-end winner, docs/PERF.md), or 'pallas' (explicit opt-in:
-    #   hand-scheduled streaming kernels, ops/pallas_cgs.py; faster per
-    #   isolated pass at <= 24 rows but the pallas_call fusion barrier
-    #   loses more than the kernels gain inside the solver loop)
+    #              the paired event buys nothing (value-checked by the
+    #              tests/test_reorth.py basis-defect property test).
 
     def __post_init__(self):
         # Argument validation mirroring dsaupd.f:435-519 / dnaupd.f info codes.
@@ -143,8 +133,6 @@ class IRAMConfig:
         # Hermitian problems through the general complex driver at ~2x
         # cost).  The projected matrix is real tridiagonal; the whole
         # symmetric reduced-space machinery applies unchanged.
-        if self.cgs_kernel not in ("auto", "xla", "pallas"):
-            raise ValueError("cgs_kernel must be 'auto', 'xla' or 'pallas'")
         if self.reorth not in ("dgks", "selective"):
             raise ValueError("reorth must be 'dgks' or 'selective'")
         if self.pair_rule not in ("always", "clean"):
@@ -172,5 +160,6 @@ def default_ncv(n: int, nev: int, symmetric: bool) -> int:
 
 
 def pad_dim(n: int, multiple: int = 128) -> int:
-    """Round ``n`` up to a TPU-lane-friendly multiple (last-dim tile = 128)."""
+    """Round ``n`` up to a multiple of ``multiple`` (128: the 3-D basis
+    layout's row width, core/arnoldi.v_is_3d)."""
     return int(-(-n // multiple) * multiple)

@@ -10,14 +10,16 @@ Design notes (vs. SRC/dsaitr.f, SRC/dnaitr.f, SRC/dgetv0.f):
 * One implementation serves symmetric, non-symmetric and complex problems.
   H is stored as a full (ncv, ncv) matrix; the symmetric path reads only its
   tridiagonal part (the reference's 2-column compact storage,
-  SRC/dsaup2.f:48-53, is a Fortran-era memory optimization with no TPU
-  benefit — a full small H keeps every reduced-space op a dense MXU matmul).
+  SRC/dsaup2.f:48-53, is a Fortran-era memory optimization with no
+  device benefit — a full small H keeps every reduced-space op a dense
+  matmul).
 * V is stored row-major as (ncv, n_pad): each basis vector is a contiguous
   row; projections ``V conj @ b_w`` and updates ``h @ V`` are single large
   GEMVs over static shapes — always the full ncv rows with a
   ``col <= j`` mask instead of the reference's length-j BLAS calls
-  (SRC/dsaitr.f:570-583).  Static shapes keep XLA/MXU tiling optimal; the
-  ~2x average flop overhead is bandwidth-neutral (V is read once either way).
+  (SRC/dsaitr.f:570-583).  Static shapes keep one compiled program per
+  solve; the ~2x average flop overhead is bandwidth-neutral (V is read
+  once either way).
 * DGKS iterative refinement with the 0.717 test and at most one extra
   correction pass mirrors SRC/dsaitr.f:656-781 exactly, as a
   ``lax.while_loop``.
@@ -63,15 +65,9 @@ class FactorizationState(NamedTuple):
     factorization is kept, not just resid).
 
     ``V`` layout: ``(ncv, n_pad // 128, 128)`` when :func:`v_is_3d` holds
-    (the default), else ``(ncv, n_pad)``.  TPU tiles the TRAILING TWO
-    dims (8, 128), so a 2-D basis interleaves 8 *different rows* per
-    tile and every single-row write/read becomes a read-modify-write of
-    the whole 8-row tile group — measured 126/60 us per step vs ~5 us
-    at n=1M (benchmarks/bench_dus.py).  The 3-D layout gives each basis
-    vector its own tiles: row access is tile-aligned (measured 3.8x on
-    the full Lanczos step, benchmarks/bench_dus2.py), while rotations
-    ``Q^T V`` and CGS contractions are layout-neutral (they contract /
-    batch over the leading axis).  Element order is identical, so
+    (the default), else ``(ncv, n_pad)``.  Rotations ``Q^T V`` and CGS
+    contractions are layout-neutral (they contract / batch over the
+    leading axis), and element order is identical, so
     ``V.reshape(ncv, n_pad)`` recovers the matrix view.
     """
 
@@ -89,14 +85,12 @@ class FactorizationState(NamedTuple):
 
 
 def v_is_3d(cfg: IRAMConfig, mesh=None) -> bool:
-    """Whether the basis uses the per-row-tiled (ncv, n_pad//128, 128)
-    layout (see FactorizationState).  Requires 128-lane divisibility; under
-    a mesh the panel axis is the row-sharded axis, so n_pad must split
-    into whole panels per device; the opt-in Pallas CGS kernels address V
-    as (ncv, n_pad) and keep the 2-D layout."""
+    """Whether the basis uses the (ncv, n_pad//128, 128) layout (see
+    FactorizationState).  Requires 128-element divisibility; under a mesh
+    the panel axis is the row-sharded axis, so n_pad must split into
+    whole panels per device."""
     size = int(mesh.devices.size) if mesh is not None else 1
-    return (cfg.cgs_kernel != "pallas"
-            and cfg.n_pad % (128 * size) == 0)
+    return cfg.n_pad % (128 * size) == 0
 
 
 def v_matrix(V):
@@ -108,27 +102,27 @@ def v_matrix(V):
 def rotate_basis(Q, V, acc_dtype):
     """``Q^T V`` contracting V's leading (row) axis — the dsapps
     ``V <- V Q`` update in row-major storage, layout-generic (2-D or the
-    3-D per-row-tiled layout).  Narrow (bf16) storage contracts with wide
-    accumulation on TPU (MXU-native); off-TPU the operands are upcast
-    first (numerically identical, avoids the CPU DotThunk bf16 gap).
-    Returns the storage dtype of V."""
+    3-D layout).  Narrow (bf16) storage contracts natively with wide
+    accumulation (``preferred_element_type``), so V is read at its
+    stored width; XLA's CPU backend has no bf16 x bf16 -> f32 matrix
+    product, so there the operands are upcast first (bf16 -> f32 is
+    exact).  Returns the storage dtype of V."""
     sdt = V.dtype
     acc = jnp.dtype(acc_dtype)
     if sdt == acc:
         return lax.dot_general(Q.astype(acc), V, (((0,), (0,)), ((), ())))
-    if jax.default_backend() == "tpu":
-        return lax.dot_general(Q.astype(sdt), V, (((0,), (0,)), ((), ())),
-                               preferred_element_type=acc).astype(sdt)
-    return lax.dot_general(Q.astype(acc), V.astype(acc),
-                           (((0,), (0,)), ((), ()))).astype(sdt)
+    if jax.default_backend() == "cpu":
+        return lax.dot_general(Q.astype(acc), V.astype(acc),
+                               (((0,), (0,)), ((), ()))).astype(sdt)
+    return lax.dot_general(Q.astype(sdt), V, (((0,), (0,)), ((), ())),
+                           preferred_element_type=acc).astype(sdt)
 
 
-#: bucket granularity for the kev-row restart rotation (f32 sublane tile)
+#: bucket granularity for the kev-row restart rotation
 _ROT_BUCKET = 8
 
 
-def rotate_basis_kev(Q, V, kev, acc_dtype, need_next: bool = True,
-                     pallas_ok: bool = False):
+def rotate_basis_kev(Q, V, kev, acc_dtype, need_next: bool = True):
     """Restart rotation ``Q^T V`` computing ONLY the surviving rows.
 
     dsapps parity: the reference updates just columns 1..kev+1 of ``V·Q``,
@@ -143,24 +137,9 @@ def rotate_basis_kev(Q, V, kev, acc_dtype, need_next: bool = True,
     output row count is bucketed to multiples of 8 via ``lax.switch`` so
     every branch stays a static-shape contraction (same trick as the
     bucketed CGS).  Dead rows never contribute, so results match the
-    full rotation exactly up to the executing dot's own accumulation
-    order (the Pallas path is gated to f32-compute solves so wide-
-    accumulation configurations keep their XLA dot).
+    full rotation exactly up to the dot's own accumulation order.
 
-    Traffic: (ncv reads + R writes) of V instead of (ncv + ncv) —
-    at the flagship's ncv=32 / kev≈9-12 that removes ~25% of the bytes
-    on the op measured at its bandwidth ceiling (docs/PERF.md).
-
-    ``pallas_ok``: allow the in-place Pallas kernel on TPU (unsharded
-    3-D real f32/bf16 bases).  Expressing the partial update as
-    ``dot + dynamic_update_slice`` makes XLA's layout assignment flip
-    the basis to a ``{2,0,1}`` layout inside the fused while-loop and
-    insert full-V layout-conversion copies that cost MORE than the
-    partial rotation saves (measured round 4: 445 ms vs 406 ms flagship
-    wall); the kernel pins the layout and writes truly in place via
-    ``input_output_aliases`` (measured 401/458 us for R=16/24 vs 925 us
-    full at n=1M — benchmarks/bench_rot_partial.py).  Callers must pass
-    False for mesh-sharded solves (pallas_call has no GSPMD rule).
+    Traffic: (ncv reads + R writes) of V instead of (ncv + ncv).
 
     Returns ``(V_new, v_next_row, rows_written:int32)``; ``v_next_row``
     has the basis row shape (flatten + cast at the call site).
@@ -170,50 +149,11 @@ def rotate_basis_kev(Q, V, kev, acc_dtype, need_next: bool = True,
     nb = max(1, -(-ncv // _ROT_BUCKET))
     rows_list = [min((b + 1) * _ROT_BUCKET, ncv) for b in range(nb)]
 
-    # Debug escape hatch, read at BUILD time (this function runs during
-    # solver-construction tracing): set ARPACK_TPU_NO_PALLAS_ROT before
-    # constructing the solver — flipping it later has no effect on
-    # already-built (cached) solvers.
-    import os
-    if os.environ.get("ARPACK_TPU_NO_PALLAS_ROT"):
-        pallas_ok = False
-    on_tpu = jax.default_backend() == "tpu"
-    use_pl = (pallas_ok and on_tpu
-              # x64 processes are fine since round 5: the kernel's
-              # index-map scalars are pinned to i32 (pallas_rot._i32;
-              # i64 index scalars were the Mosaic "failed to legalize
-              # 'func.return'" failure that gated this off in round 4 —
-              # fix verified value-correct on-TPU under jax_enable_x64)
-              and V.ndim == 3 and V.shape[2] == 128
-              and V.shape[1] % 8 == 0
-              and jnp.dtype(V.dtype) in (jnp.dtype(jnp.float32),
-                                         jnp.dtype(jnp.bfloat16))
-              # the kernel accumulates in f32: restrict to f32-compute
-              # solves so a f64-compute/f32-storage run keeps its f64
-              # accumulation (full rotation below)
-              and jnp.dtype(acc_dtype) == jnp.dtype(jnp.float32)
-              and not jnp.issubdtype(jnp.dtype(Q.dtype),
-                                     jnp.complexfloating))
-    if use_pl:
-        from ..ops import pallas_rot
-        acc_r = jnp.dtype(jnp.float32)
-
     def mk(R):
         if R == ncv:
             # full rotation: a plain dot, no update-slice needed
             def f(_):
                 Vn = rotate_basis(Q, V, acc_dtype).astype(V.dtype)
-                vn = lax.dynamic_index_in_dim(
-                    Vn, jnp.minimum(kev, R - 1), axis=0, keepdims=False)
-                return Vn, vn, jnp.int32(R)
-            return f
-        if use_pl:
-            kern = pallas_rot.make_rotate_rows(
-                ncv, R, V.shape[1], str(jnp.dtype(V.dtype)), str(acc_r),
-                panels=128)
-
-            def f(_):
-                Vn = kern(Q[:, :R].astype(V.dtype), V)
                 vn = lax.dynamic_index_in_dim(
                     Vn, jnp.minimum(kev, R - 1), axis=0, keepdims=False)
                 return Vn, vn, jnp.int32(R)
@@ -228,10 +168,7 @@ def rotate_basis_kev(Q, V, kev, acc_dtype, need_next: bool = True,
             return Vn, vn, jnp.int32(R)
         return f
 
-    if nb == 1 or (on_tpu and not use_pl):
-        # TPU without the kernel (mesh-sharded, f64, complex, 2-D
-        # layout): the dot+DUS partial form triggers the layout-copy
-        # regression described above — keep the full rotation there.
+    if nb == 1:
         return mk(ncv)(None)
     b = jnp.minimum((jnp.maximum(nrows, 1) - 1) // _ROT_BUCKET, nb - 1)
     return lax.switch(b, [mk(R) for R in rows_list], None)
@@ -336,18 +273,13 @@ def make_init(op: Operator, cfg: IRAMConfig, v3d: Optional[bool] = None):
     return hiprec(init)
 
 
-def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
+def make_extend(op: Operator, cfg: IRAMConfig):
     """Build the jittable factorization extension
     ``extend(state, k_start, k_end)``: dsaitr/dnaitr equivalent.
 
     Extends a ``k_start``-step factorization to ``k_end`` steps.  Both bounds
     may be traced (the restart loop calls with dynamic nev due to the
     stagnation guard of SRC/dsaup2.f:678-684).
-
-    ``pallas_sel_ok``: allow the scalar-prefetch Pallas event kernels
-    (ops/pallas_sel.py) for the eta-subset reorthogonalization on TPU —
-    callers must pass False for mesh-sharded solves (pallas_call has no
-    GSPMD rule), mirroring ``rotate_basis_kev(pallas_ok=...)``.
     """
     ncv, n_pad, n = cfg.ncv, cfg.n_pad, cfg.n
     dtype = jnp.dtype(cfg.dtype)
@@ -359,8 +291,6 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
     # for already-built (jit-cached) solvers.
     import os as _os
     _force_full_reorth = bool(_os.environ.get("ARPACK_TPU_FULL_REORTH"))
-    _no_pallas_sel = bool(_os.environ.get("ARPACK_TPU_NO_PALLAS_SEL"))
-    _SEL_EXTRA = int(_os.environ.get("ARPACK_TPU_SEL_EXTRA_BUCKET", "0"))
     if mixed and _dt.is_complex(dtype):
         raise ValueError("storage_dtype is supported for real dtypes only")
     rdt = _dt.real_dtype(dtype)
@@ -379,11 +309,10 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
     # recomputed fresh each step exactly like dsaitr's ORTH1 B*r request
     # (SRC/dsaitr.f:570-583 B-variant), so the per-step saving is the two
     # V passes, not the B apply.
-    # restart='thick' keeps the omega model valid since round 5: the
-    # fused tail re-tridiagonalizes the kept block (device_sym
-    # _retridiagonalize), so there is no arrowhead and the three-term
-    # recurrence resumes exactly (the round-3 thick-degenerates-to-full
-    # measurement predates this).
+    # restart='thick' keeps the omega model valid: the fused tail
+    # re-tridiagonalizes the kept block (device_sym _retridiagonalize),
+    # so there is no arrowhead and the three-term recurrence resumes
+    # exactly.
     use_pro = (cfg.reorth == "selective" and cfg.symmetric
                and cfg.restart in ("implicit", "thick"))
     tiny = jnp.asarray(_dt.safmin(dtype), rdt)
@@ -392,8 +321,6 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
     b_apply = (lambda r: op.b_apply(r)) if is_g else (lambda r: r)
     nbx1 = jnp.int32(1 if is_g else 0)
     bnorm = make_bnorm(op, cfg)
-
-    _mixed_dot_native = jax.default_backend() == "tpu"
 
     def _proj(V, w):
         """(rows,) projection coefficients V^H w, accumulated in `dtype`
@@ -405,12 +332,6 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
             w = w.reshape(V.shape[1], V.shape[2])
             if not mixed:
                 return lax.dot_general(V.conj(), w,
-                                       (((1, 2), (0, 1)), ((), ())))
-            if not _mixed_dot_native:
-                # CPU DotThunk lacks bf16xbf16=f32 rank-3 contractions;
-                # upcasting first is numerically identical (bf16->f32 is
-                # exact, accumulation stays f32)
-                return lax.dot_general(V.astype(dtype), w.astype(dtype),
                                        (((1, 2), (0, 1)), ((), ())))
             return lax.dot_general(V, w.astype(sdt),
                                    (((1, 2), (0, 1)), ((), ())),
@@ -426,10 +347,6 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
             if not mixed:
                 return lax.dot_general(
                     h, V, (((0,), (0,)), ((), ()))).reshape(-1)
-            if not _mixed_dot_native:
-                return lax.dot_general(
-                    h, V.astype(dtype),
-                    (((0,), (0,)), ((), ()))).reshape(-1)
             return lax.dot_general(
                 h.astype(sdt), V, (((0,), (0,)), ((), ())),
                 preferred_element_type=dtype).reshape(-1)
@@ -452,34 +369,10 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
         r = lax.dynamic_index_in_dim(V, j, axis=0, keepdims=False)
         return r.reshape(-1).astype(dtype)
 
-    # ---- CGS kernel backend selection -----------------------------------
-    # 'pallas': hand-scheduled streaming kernels (ops/pallas_cgs.py).
-    # They win ISOLATED per-pass A/Bs vs XLA's GEMV lowering at <= 24
-    # rows (benchmarks/bench_pallas_cgs.py), but measured END-TO-END in
-    # the solver loop they LOSE (docs/PERF.md round-1 retrospective): a
-    # pallas_call is a fusion barrier, so XLA must materialize operand
-    # slices/reshapes and can no longer fuse the norm reductions and
-    # masking arithmetic into the contraction epilogues.  'auto'
-    # therefore resolves to the XLA contractions everywhere; 'pallas' is
-    # an explicit opt-in (interpreter mode off-TPU, for tests).
-    _pallas_ok = (not _dt.is_complex(dtype)
-                  and jnp.dtype(dtype) == jnp.float32
-                  and jnp.dtype(sdt) in (jnp.dtype(jnp.float32),
-                                         jnp.dtype(jnp.bfloat16))
-                  and n_pad % 128 == 0)
-    if cfg.cgs_kernel == "pallas":
-        use_pallas = True
-        if not _pallas_ok:
-            raise ValueError("cgs_kernel='pallas' requires real float32 "
-                             "compute, f32/bf16 storage, n_pad % 128 == 0")
-    else:
-        use_pallas = False
-    _pl_interpret = jax.default_backend() != "tpu"
-
     # ---- bucketed CGS: stream only the active rows of V ----------------
     # The masked static-shape contractions above always read the full
     # (ncv, n) basis from HBM even when only j+1 rows are active.  Since
-    # the solver is V-bandwidth-bound (docs/PERF.md), that overread is the
+    # the solver is V-bandwidth-bound, that overread is the
     # single largest waste in the cycle: averaged over a restart cycle the
     # active row count is ~2/3–3/4 of ncv.  Dispatching on the bucket
     # ceil((j+1)/8)*8 via lax.switch keeps every branch a static-shape
@@ -490,29 +383,11 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
     _nbuckets = max(1, -(-ncv // _BUCKET))
     _bucket_rows = [min((b + 1) * _BUCKET, ncv) for b in range(_nbuckets)]
 
-    if use_pallas:
-        from ..ops import pallas_cgs as _plcgs
-        _sdt_name, _cdt_name = str(jnp.dtype(sdt)), str(jnp.dtype(dtype))
-
-        def _pl_proj(rows):
-            return _plcgs.make_proj(rows, ncv, n_pad, _sdt_name, _cdt_name,
-                                    interpret=_pl_interpret)
-
-        def _pl_update(rows):
-            return _plcgs.make_update(rows, ncv, n_pad, _sdt_name,
-                                      _cdt_name, interpret=_pl_interpret)
-
     def _proj_upto(V, w, j):
         """V[:rows]^H w padded to (ncv,), rows = smallest bucket > j."""
         def mk(rows):
-            if use_pallas and rows % 8 == 0 and rows <= _plcgs.MAX_FAST_ROWS:
-                pk = _pl_proj(rows)
-
-                def f(_):
-                    return jnp.pad(pk(V, w), (0, ncv - rows))
-            else:
-                def f(_):
-                    return jnp.pad(_proj(V[:rows], w), (0, ncv - rows))
+            def f(_):
+                return jnp.pad(_proj(V[:rows], w), (0, ncv - rows))
             return f
 
         if _nbuckets == 1:
@@ -525,40 +400,8 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
         this realizes the full CGS subtraction while streaming only the
         active bucket (also serves the DGKS refinement passes)."""
         def mk(rows):
-            if use_pallas and rows % 8 == 0 and rows <= _plcgs.MAX_FAST_ROWS:
-                uk = _pl_update(rows)
-
-                def f(_):
-                    return uk(w, h[:rows], V)
-            else:
-                def f(_):
-                    return w - _comb(h[:rows], V[:rows])
-            return f
-
-        if _nbuckets == 1:
-            return mk(ncv)(None)
-        b = jnp.minimum(j // _BUCKET, _nbuckets - 1)
-        return lax.switch(b, [mk(r) for r in _bucket_rows], None)
-
-    # Fused ||r||^2: XLA fuses the ORTH1 norm reduction into its GEMV
-    # epilogue, but it cannot fuse INTO a pallas_call — so the Pallas
-    # update carries the norm out of the same pass (standard problems
-    # with plain norms only; B-norms and safe_norms keep their own pass).
-    fuse_norm = use_pallas and not is_g and not cfg.safe_norms
-
-    def _update_norm_upto(w, h, V, j):
-        def mk(rows):
-            if use_pallas and rows % 8 == 0 and rows <= _plcgs.MAX_FAST_ROWS:
-                uk = _plcgs.make_update(rows, ncv, n_pad, _sdt_name,
-                                        _cdt_name, interpret=_pl_interpret,
-                                        with_norm=True)
-
-                def f(_):
-                    return uk(w, h[:rows], V)
-            else:
-                def f(_):
-                    r = w - _comb(h[:rows], V[:rows])
-                    return r, jnp.sum(r * r)
+            def f(_):
+                return w - _comb(h[:rows], V[:rows])
             return f
 
         if _nbuckets == 1:
@@ -663,10 +506,7 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
             # as full static-shape contractions.
             nmask_le = col_idx <= j
             h = jnp.where(nmask_le, _proj_upto(V, bw, j), jnp.zeros((), dtype))
-            if fuse_norm:
-                r, _rn2 = _update_norm_upto(w, h, V, j)
-            else:
-                r = _update_upto(w, h, V, j)
+            r = _update_upto(w, h, V, j)
             # Extend H: column j gets the projection coefficients; the
             # subdiagonal H[j, j-1] is beta_{j-1} = previous rnorm
             # (zero after an invariant-subspace restart).
@@ -678,12 +518,8 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
                     beta.astype(dtype)),
                 lambda Hm: Hm, H)
             # ORTH1: B-norm of the new residual.
-            if fuse_norm:
-                br = r
-                rnorm = jnp.sqrt(_rn2).astype(rdt)
-            else:
-                br = b_apply(r)
-                rnorm = bnorm(r, br).astype(rdt)
+            br = b_apply(r)
+            rnorm = bnorm(r, br).astype(rdt)
             counts = counts.add(nbx=nbx1)
 
             # STEP 5: DGKS iterative refinement (SRC/dsaitr.f:656-781).
@@ -698,14 +534,9 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
                 r, br, rn_prev, s_tot, passes, nfail, _ = c
                 s = jnp.where(nmask_le, _proj_upto(V, br, j),
                               jnp.zeros((), dtype))
-                if fuse_norm:
-                    r, _rn2d = _update_norm_upto(r, s, V, j)
-                    br = r
-                    rn = jnp.sqrt(_rn2d).astype(rdt)
-                else:
-                    r = _update_upto(r, s, V, j)
-                    br = b_apply(r)
-                    rn = bnorm(r, br).astype(rdt)
+                r = _update_upto(r, s, V, j)
+                br = b_apply(r)
+                rn = bnorm(r, br).astype(rdt)
                 s_tot = s_tot + s
                 accept = rn > eta * rn_prev
                 give_up = (~accept) & (passes + 1 >= _MAX_DGKS_PASSES)
@@ -772,7 +603,7 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
     # analog (dsaitr always pays the full-CGS traffic).
     # noise floor.  The classical model charges sqrt(n)*eps per inner
     # product (sequential-summation worst case); XLA reduces with
-    # TREE/pairwise summation on both CPU and TPU, whose rounding is
+    # blocked TREE/pairwise summation, whose rounding is
     # ~log2(n)*eps, and the *stored-vector* orthogonality error is O(eps)
     # (coordinate noise of unit vectors: <v+d1, w+d2> error ~ ||d|| ~ eps,
     # no sqrt(n)).  At n=1M the sqrt(n) model (1.2e-4) exceeded reality by
@@ -781,12 +612,11 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
     # orthogonality decay (measured: 50% of steps paid a reorth event).
     # Charge 8*log2(n)*eps (safety factor 8 over the pairwise bound,
     # covering fma/segmented-reduction variation), plus the bf16 storage
-    # representation error when narrow storage is on.  Validated by the
-    # basis-defect property test and TPU value checks (docs/PERF.md
-    # round-4).
+    # representation error when narrow storage is on.
     # The pairwise model assumes XLA lowers the CGS inner products as
-    # tree/pairwise reductions (measured true on CPU and this TPU;
-    # guarded by the basis-defect property test, tests/test_reorth.py).
+    # tree/pairwise reductions (guarded by the basis-defect property
+    # test, tests/test_reorth.py, and by the ghost-Ritz check of
+    # chip_smoke.py on the GPU).
     # A backend that accumulates sequentially would need the classical
     # sqrt(n)*eps bound back: ARPACK_TPU_OMEGA_NOISE_MODEL=sequential
     # restores it without a code change (build-time knob, like the
@@ -805,9 +635,8 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
     # orthogonality (typically the few converged Ritz directions) —
     # reorthogonalizing against just those keeps every un-touched row
     # below eta = eps_eff^(3/4) << tau, preserving semi-orthogonality
-    # while streaming K << ncv basis rows per event.  Measured round 4:
-    # reorth events were the DOMINANT flagship traffic term (495 events
-    # x 2 full-V passes = 127 GB vs 42 GB of recurrence steps).
+    # while streaming K << ncv basis rows per event (events streaming
+    # the full basis would dominate the flagship's counted bytes).
     # cap below tau: with narrow (bf16) storage eps_eff^(3/4) can exceed
     # the trigger threshold — the selection must always include the rows
     # that caused the event
@@ -815,29 +644,6 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
         min(eps_eff ** 0.75,
             float(np.sqrt(eps_eff) / _dt.SELECTIVE_SAFETY) / 2.0), rdt)
     neg_inf = jnp.asarray(-jnp.inf, rdt)
-
-    # ---- scalar-prefetch Pallas event kernels (round 5) ----------------
-    # The XLA lowering of a subset event (jnp.take -> proj -> update)
-    # carries a measured ~150 us FIXED gather-materialization cost per
-    # event (benchmarks/bench_sel_gather.py, docs/PERF.md round-4); the
-    # PrefetchScalarGridSpec kernels stream the K indexed rows straight
-    # from the basis instead.  Gated like the rotation kernel: TPU,
-    # unsharded, 3-D real f32-compute basis (f32/bf16 storage); index
-    # scalars are i32-pinned so x64 processes keep the kernel.
-    use_sel_pl = (pallas_sel_ok and use_pro
-                  and jax.default_backend() == "tpu"
-                  and not _no_pallas_sel
-                  and not _dt.is_complex(dtype)
-                  and jnp.dtype(dtype) == jnp.dtype(jnp.float32)
-                  and jnp.dtype(sdt) in (jnp.dtype(jnp.float32),
-                                         jnp.dtype(jnp.bfloat16))
-                  # panel blocks need a multiple-of-8 sublane count
-                  # (Mosaic f32 tile); odd panel counts (e.g. n=200k ->
-                  # npan=1563) keep the take path
-                  and n_pad % (128 * 8) == 0
-                  and cfg.cgs_kernel != "pallas")  # 2-D layout opt-out
-    # fused ||r'||^2 epilogue: standard problems with plain norms only
-    fuse_sel_norm = use_sel_pl and not is_g and not cfg.safe_norms
 
     def _omega_update(a, b, wp, wc, j, wnorm, beta_j):
         """One row of Simon's omega recurrence (signed terms, abs at the
@@ -924,43 +730,12 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
                 threshold rows padded into the top-K gather are cleaned
                 too (harmless), stale rows (col > j) are masked out.
 
-                Returns ``(r2, reset, rows, rn2)``; ``rn2`` is the fused
-                ||r2||^2 when the Pallas event kernels carry it
-                (``fuse_sel_norm``), else 0."""
+                Returns ``(r2, reset, rows)``."""
                 sel_key = jnp.where(col_idx <= j, wn, neg_inf)
                 order = jnp.argsort(-sel_key)
                 cnt = jnp.sum(sel_key > eta_sub).astype(jnp.int32)
-                upl = use_sel_pl and V.ndim == 3
-                zero_n = jnp.zeros((), rdt)
 
                 def mk(K):
-                    if upl:
-                        from ..ops import pallas_sel as _plsel
-                        _sn = str(jnp.dtype(sdt))
-                        _cn = str(jnp.dtype(dtype))
-                        pk = _plsel.make_sel_proj(K, ncv, n_pad // 128,
-                                                  _sn, _cn)
-                        uk = _plsel.make_sel_update(
-                            K, ncv, n_pad // 128, _sn, _cn,
-                            with_norm=fuse_sel_norm)
-
-                        def f(_):
-                            idx = order[:K].astype(jnp.int32)
-                            valid = jnp.take(sel_key, idx) > neg_inf
-                            s_k = pk(idx, V, br)
-                            s_k = jnp.where(valid, s_k,
-                                            jnp.zeros((), dtype))
-                            if fuse_sel_norm:
-                                r2, rn2 = uk(idx, s_k, r, V)
-                                rn2 = rn2.astype(rdt)
-                            else:
-                                r2 = uk(idx, s_k, r, V)
-                                rn2 = zero_n
-                            reset = jnp.zeros((ncv,), bool).at[idx].set(
-                                valid)
-                            return r2, reset, jnp.int32(K), rn2
-                        return f
-
                     def f(_):
                         idx = order[:K]
                         valid = jnp.take(sel_key, idx) > neg_inf
@@ -969,26 +744,21 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
                         s_k = jnp.where(valid, s_k, jnp.zeros((), dtype))
                         r2 = r - _comb(s_k, Vg)
                         reset = jnp.zeros((ncv,), bool).at[idx].set(valid)
-                        return r2, reset, jnp.int32(K), zero_n
+                        return r2, reset, jnp.int32(K)
                     return f
 
                 if _nbuckets == 1 or _force_full_reorth:
                     return mk(ncv)(None)   # debug hatch: all rows
-                bket = jnp.minimum(
-                    jnp.maximum(cnt - 1, 0) // _BUCKET + _SEL_EXTRA,
-                    _nbuckets - 1)
+                bket = jnp.minimum(jnp.maximum(cnt - 1, 0) // _BUCKET,
+                                   _nbuckets - 1)
                 return lax.switch(bket,
                                   [mk(rws) for rws in _bucket_rows], None)
 
             def run_reorth(args):
                 r, br, rn_prev = args
-                r1, reset, K, rn2 = subset_pass(r, br)
-                if fuse_sel_norm:
-                    br1 = r1
-                    rn1 = jnp.sqrt(rn2).astype(rdt)
-                else:
-                    br1 = b_apply(r1)
-                    rn1 = bnorm(r1, br1).astype(rdt)
+                r1, reset, K = subset_pass(r, br)
+                br1 = b_apply(r1)
+                rn1 = bnorm(r1, br1).astype(rdt)
                 accept1 = rn1 > eta * rn_prev
 
                 def full_fallback(a):
@@ -1037,7 +807,7 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
             # event WAS the forced follow-up
             wn = jnp.where(reset, jnp.full((ncv,), eps1, rdt), wn)
             if cfg.pair_rule == "clean":
-                # clean-carrier suppression (round-4 verdict #6): the
+                # clean-carrier suppression: the
                 # eta-subset selection leaves every untouched row of
                 # omega_{j+1} below eta_sub by construction; the only
                 # super-eta feedback path into omega_{j+2} is the
@@ -1075,6 +845,6 @@ def make_extend(op: Operator, cfg: IRAMConfig, pallas_sel_ok: bool = False):
         return st
 
     # matmul-precision pin (utils/precision.py): the CGS/recurrence dots
-    # at DEFAULT precision truncate toward bf16 on TPU and break every
-    # orthogonality argument (measured ghost Ritz values, round 4)
+    # at reduced precision (TF32 on the GPU) break every orthogonality
+    # argument (ghost Ritz values)
     return hiprec(extend)

@@ -14,8 +14,8 @@ Here the reduced space runs on device:
   replaces dlahqr (SRC/dneigh.f:194).  Working in complex arithmetic
   removes the double-shift bookkeeping of the real Francis iteration —
   the trade the reference's authors note as "simpler, 2x flops"
-  (SURVEY hard-parts #3); on the MXU the extra flops are noise while the
-  removed host round trips are the dominant cost.
+  (SURVEY hard-parts #3); on (ncv, ncv) operands the extra flops are
+  noise while the removed host round trips are the dominant cost.
 * **Ritz bounds** (dneigh's rnorm * |last eigenvector component|) via
   batched masked triangular solves for the eigenvectors of the Schur
   factor, guarded like dtrevc's smallnum clamps.

@@ -3,12 +3,8 @@ end to end (dnaupd/dnaup2 class), the faithful-real counterpart of the
 complexified path in core/device_nonsym.py.
 
 Why this exists: the complex fused path costs 2x matvec flops (operator
-applied to Re/Im separately) and requires a backend that can execute
-complex arithmetic at all — the TPU runtime attached to this environment
-cannot (docs/PERF.md "Backend caveat").  Real non-symmetric problems
-previously had to fall back to the hybrid driver and pay a host
-reduced-space round trip per restart cycle (measured 56.7 ms/cycle vs
-15.3 ms for the fused symmetric path at n=1M).  This module runs the
+applied to Re/Im separately), and the hybrid driver pays a host
+reduced-space round trip per restart cycle.  This module runs the
 whole dnaup2 major iteration on device in real arithmetic:
 
 * **Real Schur form** of the (ncv, ncv) Hessenberg via explicit
@@ -343,8 +339,7 @@ class RealCycleOut(NamedTuple):
     bounds_s: jax.Array  # (ncv,)
 
 
-def make_realnonsym_cycle(op: Operator, cfg: IRAMConfig,
-                          pallas_rot_ok: bool = False):
+def make_realnonsym_cycle(op: Operator, cfg: IRAMConfig):
     """Jitted fused cycle for REAL non-symmetric problems:
     (state, is_last) -> RealCycleOut."""
     if cfg.symmetric:
@@ -481,8 +476,7 @@ def make_realnonsym_cycle(op: Operator, cfg: IRAMConfig,
             # dsapps-parity kev-row update (SRC/dnapps.f analog): only
             # rows 0..nev_eff of Q^T V survive the restart
             VQ, v_next, rots = rotate_basis_kev(Q, state.V, nev_eff,
-                                                cfg.dtype,
-                                                pallas_ok=pallas_rot_ok)
+                                                cfg.dtype)
             v_next = v_next.reshape(-1).astype(cfg.dtype)
             resid = sigmak * state.resid + betak * v_next
             b_resid = op.b_apply(resid) if is_g else resid
@@ -508,12 +502,10 @@ def make_realnonsym_cycle(op: Operator, cfg: IRAMConfig,
     return hiprec(cycle)
 
 
-def make_realnonsym_multi_cycle(op: Operator, cfg: IRAMConfig,
-                                pallas_rot_ok: bool = False):
+def make_realnonsym_multi_cycle(op: Operator, cfg: IRAMConfig):
     """lax.while_loop over the fused real-nonsym cycle — the whole
     restart loop in one dispatch (see device_sym.make_sym_multi_cycle)."""
-    cycle = make_realnonsym_cycle(op, cfg,
-                                  pallas_rot_ok=pallas_rot_ok)
+    cycle = make_realnonsym_cycle(op, cfg)
     ncv = cfg.ncv
     rdt = jnp.dtype(cfg.dtype)
 
@@ -554,18 +546,12 @@ class FusedRealNonsymSolver:
             raise ValueError("FusedRealNonsymSolver is for real dtypes")
         if cfg.symmetric:
             raise ValueError("use FusedSymSolver for symmetric problems")
-        if mesh is not None and cfg.cgs_kernel == "pallas":
-            # no GSPMD partitioning rule for pallas_call; 'auto' already
-            # resolves to the (correctly sharding) XLA contractions
-            raise ValueError("cgs_kernel='pallas' does not support "
-                             "mesh-sharded solves; use the default")
         self.op, self.cfg, self.mesh = op, cfg, mesh
         self.cycles_per_dispatch = cycles_per_dispatch
         if not cfg.exact_shifts:
             raise ValueError("fused path requires exact shifts")
         init = make_init(op, cfg, v3d=v_is_3d(cfg, mesh))
-        multi = make_realnonsym_multi_cycle(op, cfg,
-                                            pallas_rot_ok=mesh is None)
+        multi = make_realnonsym_multi_cycle(op, cfg)
         if mesh is None:
             # hoisted_jit keeps operator data (dense/DIA/banded/ILU
             # arrays) out of the lowered module (utils/hoist.py)

@@ -101,7 +101,7 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     # ---- reduced eigensystem from the final factorization ----
     if sym:
         if getattr(cfg, "restart", "implicit") == "thick":
-            # thick restarts re-tridiagonalize since round 5
+            # thick restarts re-tridiagonalize the kept block
             # (device_sym._retridiagonalize), but the full-CGS (dgks)
             # extension writes full upper-column projections into H, so
             # the safe general read is the full projected matrix from

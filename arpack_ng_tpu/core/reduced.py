@@ -3,7 +3,7 @@
 The reference keeps every NCV-sized quantity (H, Ritz values, bounds, Q)
 *replicated* on all ranks and computes on them redundantly with zero
 communication (SRC/dsaupd.f:331-348 "Data Distribution Note";
-PARPACK/SRC/MPI/pdsaup2.f:481-517).  The TPU framework keeps the same split:
+PARPACK/SRC/MPI/pdsaup2.f:481-517).  This framework keeps the same split:
 O(n) work lives on device; the tiny dense subproblem runs here in numpy
 (float64 host arithmetic regardless of device dtype — strictly more accurate
 than the reference, whose single-precision drivers do this in float32).

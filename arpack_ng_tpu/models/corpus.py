@@ -1,5 +1,5 @@
 """Irregular-matrix corpus generators — the SuiteSparse-class structure
-zoo the import heuristics must face (round-3 verdict item #5).
+zoo the import heuristics must face.
 
 The reference's matrix-file tests read five shipped .mtx files
 (EXAMPLES/MATRIX_MARKET/arpackmm.sh:10-50, TESTS/dnsimp.f:192-194); this

@@ -2,11 +2,12 @@
 PARPACK example pattern (PARPACK/EXAMPLES/MPI/pdsdrv1.f:429-480: 1-D
 row-partitioned 2-D Laplacian whose matvec sends/receives nx-sized
 boundary blocks between neighboring ranks) rebuilt with ``shard_map`` +
-``lax.ppermute`` over the TPU mesh.
+``lax.ppermute`` over the device mesh.
 
 The reference user writes MPI_SEND/MPI_RECV inside their matvec; here the
 halo exchange is a single ``ppermute`` per direction, compiled by XLA into
-ICI neighbor transfers that overlap with the local stencil computation.
+neighbor transfers (NCCL over NVLink on a GPU host) that can overlap with
+the local stencil computation.
 Missing halos at the mesh boundary arrive as zeros = Dirichlet walls.
 """
 from __future__ import annotations
@@ -49,7 +50,7 @@ def laplacian_2d_sharded(nx: int, ny: int, mesh: Mesh,
         # Communication/computation overlap: the ppermute results feed
         # ONLY the two boundary-row corrections below, so the whole
         # interior stencil is independent work XLA's latency-hiding
-        # scheduler can run while the ICI transfer is in flight (the
+        # scheduler can run while the transfer is in flight (the
         # reference overlaps nothing — send/recv complete before av()).
         from_above = jax.lax.ppermute(u[-1:, :], ROWS, perm=fwd)
         from_below = jax.lax.ppermute(u[:1, :], ROWS, perm=bwd)

@@ -10,7 +10,7 @@ These reproduce the operator families of the reference example drivers:
   convection-diffusion operator of ``dnsimp``/``dndrv`` drivers
   (EXAMPLES/SIMPLE/dnsimp.f; complex variant: EXAMPLES/COMPLEX/zndrv1.f).
 
-Device implementation: shift-and-pad stencil application — pure VPU
+Device implementation: shift-and-pad stencil application — pure
 elementwise work at the HBM bandwidth roofline; no matrix is stored.  Each
 builder also returns the equivalent ``scipy.sparse`` matrix for
 independent-oracle verification.

@@ -1,5 +1,5 @@
 """Banded-matrix operators and convenience eigensolver drivers — the
-EXAMPLES/BAND family ([sdcz][sn]band.f) rebuilt TPU-native.
+EXAMPLES/BAND family ([sdcz][sn]band.f) rebuilt for the device.
 
 The reference's ``dsband`` is a self-contained driver: it factors
 ``A - sigma*M`` with LAPACK ``dgbtrf``, applies OP with ``dgbtrs``/
@@ -8,14 +8,14 @@ The reference's ``dsband`` is a self-contained driver: it factors
 
 * the banded **matvec** runs on device as a diagonal-offset
   shift-and-multiply sweep (kl+ku+1 fused multiply-adds over length-n
-  vectors — pure VPU streaming at HBM bandwidth, no gather);
+  vectors — pure elementwise streaming at HBM bandwidth, no gather);
 * the banded **solve** for shift-invert/generalized modes is host-factored
   once in float64 by **block cyclic reduction** (:mod:`.bandsolve`) and
   applied on device as log-depth batched b x b contractions — O(n*b)
   memory, O(n*b^2) work, matching the reference's ``dgbtrf``/``dgbtrs``
   scaling (dsband.f:399-463) without its O(n)-deep substitution chain.
   Small problems (n <= 1024 by default) instead use a host dense inverse
-  applied as a single MXU GEMM, which is faster at that scale;
+  applied as a single GEMM, which is faster at that scale;
 * :func:`eigsh_banded` / :func:`eigs_banded` reproduce the one-call
   "give me eigenvalues of this concrete banded matrix" API including all
   spectral-transform modes.

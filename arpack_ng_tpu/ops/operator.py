@@ -1,4 +1,4 @@
-"""Operator callables: the TPU-native replacement of arpack-ng's Reverse
+"""Operator callables: the JAX replacement of arpack-ng's Reverse
 Communication Interface (RCI).
 
 The reference never sees the matrix: ``dsaupd`` returns with ``ido`` flags
@@ -23,8 +23,8 @@ Contract (mirrors the information flow of the RCI work arrays):
   independent matvec the reference examples use to check
   ``||A x - lambda B x||`` (PARPACK/EXAMPLES/MPI/pdsdrv1.f:350-352).
 
-Padding: operators act on a padded dimension ``n_pad >= n`` (TPU lane
-alignment).  Implementations must map zero padding to zero padding so the
+Padding: operators act on a padded dimension ``n_pad >= n`` (a multiple
+of 128, the basis row width).  Implementations must map zero padding to zero padding so the
 Krylov space never leaves the embedded subspace; the solver guarantees every
 vector it injects (start/restart vectors) is zero on the pad.
 """
@@ -62,9 +62,9 @@ class Operator:
     #   user-built operators.
     apply_block: Optional[Callable] = None  # optional batched raw matvec
     #   (B, n_pad) -> (B, n_pad) for block solvers: vmap of a
-    #   shifted-slice DIA matvec lowers .at[].add updates to scatters
-    #   (the forbidden pattern on TPU); a block-native form keeps static
-    #   slices and reads operator data once per block.
+    #   shifted-slice DIA matvec lowers .at[].add updates to scatters;
+    #   a block-native form keeps static slices and reads operator data
+    #   once per block.
 
     def __post_init__(self):
         if self.n_pad == 0:
@@ -104,7 +104,7 @@ def from_dense(
 
     ``m is None``: mode 1, ``OP = A``, ``B = I`` (EXAMPLES/SIMPLE drivers).
     ``m`` given:   mode 2, ``OP = inv(M) A``, ``B = M`` (dsdrv3-class).
-    Dense matvec maps directly onto the MXU.
+    Dense matvec is one matrix-vector product.
     """
     a = np.asarray(a)
     n = a.shape[0]

@@ -9,9 +9,9 @@ the real block operator
 
 whose spectrum is spec(A) ∪ conj(spec(A)) and whose eigenvector for
 eigenvalue lambda is [Re z; Im z].  This classic construction lets a
-backend with no complex-arithmetic support (some TPU runtimes; see
-docs/PERF.md) solve complex problems with the real non-symmetric driver;
-it also gives complex HERMITIAN problems a real-SYMMETRIC route
+backend with no complex-arithmetic support solve complex problems with
+the real non-symmetric driver; it also gives complex HERMITIAN problems
+a real-SYMMETRIC route
 (M is symmetric when A is Hermitian), usable with the fused symmetric
 path at full speed.
 

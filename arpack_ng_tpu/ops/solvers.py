@@ -136,9 +136,9 @@ def make_direct_inverse(mat, kind: str, *, pivot: float = 1e-6,
                         offset: float = 0.0, scale: float = 1.0,
                         n_pad: int = 0):
     """Host direct factorization -> explicit identity-padded inverse,
-    to be applied on device as one GEMM (the TPU-idiomatic realization
-    of a direct mode solver: the O(n^3) factor+invert runs once on the
-    host, every application is an MXU matmul).
+    to be applied on device as one GEMM (a direct mode solver whose
+    O(n^3) factor+invert runs once on the host; every application is
+    one matmul).
 
     The ``kind`` menu mirrors arpackSolver's Eigen direct solvers
     (arpackmm.cpp:445-463, arpackSolver.hpp:1030-1130):
@@ -242,7 +242,7 @@ def ilu0_preconditioner(a_sp, *, sweeps: int = 3, dtype=None,
         inv(U) y       ~= sum_k (inv(D)(-Us))^k inv(D) y
 
     where ``Ls``/``Us`` are the strict triangles streamed in DIA form —
-    no gathers (catastrophic on TPU, docs/PERF.md) and no O(n)-deep
+    no gathers and no O(n)-deep
     substitution chain.  The result is a fixed linear operator, exactly
     what Krylov preconditioning requires.
 
@@ -254,7 +254,7 @@ def ilu0_preconditioner(a_sp, *, sweeps: int = 3, dtype=None,
     application matches the EXACT triangular-solve ILU(0) one-application
     quality at sweeps=3-4 (0.444 vs 0.443 residual reduction), and
     BiCGSTAB reaches ~2.7x smaller residual per 20 iterations than
-    Diag/none (docs/PERF.md).
+    Diag/none.
 
     Falls back to Jacobi (with a warning) if SuperLU had to permute
     (structurally zero diagonal), since a device-side permutation would
@@ -317,8 +317,8 @@ def ilu0_preconditioner(a_sp, *, sweeps: int = 3, dtype=None,
         # classic ILU(0) keeps ONLY the pattern of A.  SuperLU's ILUTP
         # respects the memory cap but still scatters a little fill onto
         # off-pattern diagonals; at n=1M that fill materialized ~2000
-        # distinct DIA offsets = gigabytes of device diagonals (measured
-        # round 3: 8.6 GB of captured constants).  Masking to A's
+        # distinct DIA offsets = gigabytes of device diagonals.  Masking
+        # to A's
         # pattern IS the ILU(0) definition and keeps the device form on
         # A's few diagonals.
         patt = sp.csr_matrix(

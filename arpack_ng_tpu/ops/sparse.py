@@ -4,23 +4,18 @@ The reference's sparse story lives in user code (RCI matvecs) and in the
 Eigen-based C++ layer (``EigSMxS`` sparse matrices read from MatrixMarket,
 arpackSolver.hpp:176-215).  Here sparse matrices are first-class
 operators, imported through a STRUCTURE-FIRST decision tree
-(:func:`from_scipy`, measured on-hardware — docs/PERF.md):
+(:func:`from_scipy`), chosen from the matrix alone:
 
-* dense (one MXU matmul) for small n;
+* dense (one matmul) for small n;
 * DIA shift-multiply streaming when the structural diagonal count is
-  bounded — directly or after RCM reordering (the TPU-optimal form:
-  no gathers, pure VPU streams); DIA operators also carry the
-  lane-major BLOCK apply (:func:`dia_block_matvec_fn`, round 5);
-* PSELL (ops/pallas_psell.py, round 5) for irregular sparsity on TPU:
-  panel-tiled one-hot contractions replace serial gathers (FEM /
-  power-law classes at 0.6 Gnnz/s vs 0.05 for gather formats), with
-  RCM or degree-deal (:func:`_deal_perm`) ordering chosen by packing
-  cost;
-* gather-ELL / hybrid ELL+COO (Bell & Garland) on backends without the
-  TPU gather penalty; scatter-add COO as the last resort.
+  bounded — directly or after RCM reordering (no gathers, pure
+  elementwise streams); DIA operators also carry the BLOCK apply
+  (:func:`dia_block_matvec_fn`);
+* gather-ELL, or hybrid ELL+COO (Bell & Garland) when hub rows would pad
+  every row to the hub degree; scatter-add COO as the last resort.
 
-A Pallas DIA kernel (ops/pallas_dia.py) is the explicit-control variant
-of the diagonal-streaming path for future fusion work.
+PSELL (ops/psell.py: panel-tiled one-hot contractions in place of
+gathers) is available by request, ``format='psell'``.
 """
 from __future__ import annotations
 
@@ -80,7 +75,7 @@ def coo_matvec(rows: jax.Array, cols: jax.Array, vals: jax.Array,
 
 #: structural-diagonal count up to which the DIA fast path is preferred
 DIA_MAX_DIAGONALS = 192
-#: below this dimension a dense (MXU matmul) operator is cheapest
+#: below this dimension a dense (one matmul) operator is cheapest
 DENSE_MAX_N = 2048
 #: switch ELL -> hybrid ELL+COO when the max row length exceeds this
 #: multiple of the 95th-percentile row length (power-law/hub matrices:
@@ -91,10 +86,10 @@ HYB_WASTE_FACTOR = 3
 
 def dia_matvec_fn(offsets, diags, n: int, n_pad: int):
     """Device closure for a DIA (diagonal-set) matvec: one shifted
-    elementwise multiply per structural diagonal — VPU streaming with no
-    gather, the TPU-optimal form for any matrix whose nonzeros live on a
-    bounded set of diagonals (stencils, banded systems, RCM-reordered
-    meshes).  ``diags[k][i] = A[i, i + offsets[k]]``."""
+    elementwise multiply per structural diagonal — streaming with no
+    gather, for any matrix whose nonzeros live on a bounded set of
+    diagonals (stencils, banded systems, RCM-reordered meshes).
+    ``diags[k][i] = A[i, i + offsets[k]]``."""
     dev = [jnp.asarray(d) for d in diags]
 
     def matvec(x):
@@ -117,22 +112,17 @@ def dia_matvec_fn(offsets, diags, n: int, n_pad: int):
 
 def dia_block_matvec_fn(offsets, diags, n: int, n_pad: int):
     """Tile-interleaved ("lane-major") BLOCK DIA matvec:
-    ``(b, n_pad) -> (b, n_pad)`` — the round-4 verdict #8 layout fix.
+    ``(b, n_pad) -> (b, n_pad)``.
 
-    The naive block layout puts the block index on SUBLANES, so every
-    shifted-slice diagonal update runs at 1/b sublane occupancy with
-    unaligned lane shifts — measured 12.5x the scalar 1-D form per
-    column (docs/PERF.md round-4 block table).  Here the block is
-    viewed ``(G, b, 128)`` with ``G = n_pad // 128``: column j's tile
-    group g occupies lanes of flat row ``g*b + j``, so
+    The block is viewed ``(G, b, 128)`` with ``G = n_pad // 128``:
+    column j's tile group g occupies flat row ``g*b + j``, so
 
     * a diagonal offset ``d = s*128 + r`` becomes at most TWO contiguous
       flat shifts (by ``s*128*b + r`` and ``(s+1)*128*b + r - 128``)
-      with static lane masks — the only fast shift form on this chip
-      (docs/PERF.md round-3 machine table);
+      with static masks over the 128-wide groups;
     * each diagonal is READ ONCE per block and broadcast to the b
-      columns by a leading-dim broadcast+collapse (layout-trivial, no
-      interleave materialization).
+      columns by a leading-dim broadcast+collapse (no interleave
+      materialization).
 
     The block size b is read from the operand shape at trace time.
     """
@@ -204,52 +194,6 @@ def structural_diagonals(a: sp.spmatrix) -> int:
                          - coo.row.astype(np.int64)).size)
 
 
-def _psell_groups(a: sp.spmatrix) -> int:
-    """Number of (output-chunk, column-panel) groups a PSELL packing of
-    ``a`` would touch — the x-panel fetch count per matvec (the traffic
-    term orderings are chosen to minimize)."""
-    from . import pallas_psell as ps
-    coo = a.tocoo()
-    g = coo.row.astype(np.int64) // ps.CHUNK
-    q = coo.col.astype(np.int64) // ps.PANEL
-    return int(np.unique(g * (a.shape[1] // ps.PANEL + 2) + q).size)
-
-
-def _psell_uniform_tiles(a: sp.spmatrix) -> int:
-    """Total tile count of a uniform-W PSELL packing of ``a`` (chunks x
-    max tiles-per-chunk) — the slot-padding cost orderings minimize."""
-    from . import pallas_psell as ps
-    coo = a.tocoo()
-    n = a.shape[0]
-    g = coo.row.astype(np.int64) // ps.CHUNK
-    q = coo.col.astype(np.int64) // ps.PANEL
-    qw = a.shape[1] // ps.PANEL + 2
-    gq = g * qw + q
-    uq, cnt = np.unique(gq, return_counts=True)
-    tpg = -(-cnt // ps.TILE)
-    nch = -(-n // ps.CHUNK)
-    tpc = np.zeros(nch, np.int64)
-    np.add.at(tpc, uq // qw, tpg)
-    return int(nch * max(tpc.max(), 1))
-
-
-def _deal_perm(a: sp.spmatrix) -> np.ndarray:
-    """Degree-balanced 'deal' permutation: rows sorted by degree and
-    dealt round-robin across output chunks, so hub rows spread evenly
-    (power-law matrices: uniform-W PSELL padding drops from W=max-chunk
-    blowup to ~mean — measured 23128 -> 2744 tiles on the BA corpus
-    matrix)."""
-    from . import pallas_psell as ps
-    n = a.shape[0]
-    deg = np.diff(a.tocsr().indptr)
-    nch = -(-n // ps.CHUNK)
-    order = np.argsort(-deg, kind="stable")
-    pos = (np.arange(n) % nch) * ps.CHUNK + (np.arange(n) // nch)
-    new_index = np.empty(n, np.int64)
-    new_index[order] = pos[:n]
-    return np.argsort(new_index)
-
-
 def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
                n_pad: int = 0, format: str = "auto") -> Operator:
     """Import a scipy sparse matrix as a device operator (mode 1).
@@ -257,12 +201,11 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
     The analog of arpackSolver's ``createMatrix`` MatrixMarket ingestion
     (arpackSolver.hpp:176-215; use io/matrix_market.py for ``.mtx``).
 
-    ``format='auto'`` picks the TPU-appropriate execution structure —
-    measured on-hardware, scattered gathers are ~40x slower than
-    diagonal-structured streaming, so structure exploitation beats brute
-    force:
+    ``format='auto'`` picks the execution structure from the matrix's
+    structure (diagonal streaming moves no indices and does no gathers,
+    so it is preferred wherever the nonzeros allow it):
 
-    1. small n              -> dense (one MXU matmul)
+    1. small n              -> dense (one matmul)
     2. few structural diagonals -> DIA (shift-multiply streaming)
     3. few diagonals after Reverse-Cuthill-McKee -> DIA on the permuted
        problem (the permutation is carried on the Operator and unwound
@@ -272,17 +215,17 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
        graphs) -> hybrid ELL+COO: p95-width dense gather + scatter-add
        overflow tail (Bell & Garland HYB), so hubs don't pad every row
 
-    The chosen structure is recorded on ``Operator.format``.
+    ``format`` may instead name a structure directly: 'dia', 'ell',
+    'hyb', 'psell' (ops/psell.py) or 'coo'.  The chosen
+    structure is recorded on ``Operator.format``.
     """
     a = a.tocsr().copy()   # own the buffers: canonicalization below must
     a.sum_duplicates()     # never mutate the caller's matrix
     if dtype is not None:
         a = a.astype(dtype)
     n = a.shape[0]
-    # pad to whole 1024-element chunks (not just 128 lanes): the PSELL
-    # view then needs no per-matvec pad/trim, and the (8,128)-tiled
-    # Pallas paths (event kernels, kev-row rotation) stay enabled for
-    # any imported size
+    # pad to whole 1024-element chunks: the PSELL view then needs no
+    # per-matvec pad/trim
     n_pad = n_pad or pad_dim(n, 1024)
     perm = None
 
@@ -300,30 +243,12 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
             if structural_diagonals(ap) <= DIA_MAX_DIAGONALS:
                 a, perm, format = ap.tocsr(), p, "dia"
             else:
-                import jax as _jax
-                if _jax.default_backend() == "tpu":
-                    # irregular sparsity on TPU: PSELL replaces serial
-                    # gathers with one-hot contractions (round-4
-                    # verdict #2: the gather formats measured
-                    # 0.05 Gnnz/s, a 100x cliff vs DIA streaming —
-                    # docs/PERF.md round-4/5).  Pick the ordering
-                    # (natural, RCM, or degree-deal) that minimizes the
-                    # uniform-W tile count — the padding term of the
-                    # slot-sum formulation.
-                    format = "psell"
-                    pd = _deal_perm(a)
-                    ad = a[pd][:, pd].tocsr()
-                    cands = [(a, None), (ap.tocsr(), p), (ad, pd)]
-                    costs = [_psell_uniform_tiles(m) for m, _ in cands]
-                    a, perm = cands[int(np.argmin(costs))]
+                nnz_row = np.diff(a.indptr)
+                hyb_w95 = max(int(np.ceil(np.percentile(nnz_row, 95))), 1)
+                if int(nnz_row.max()) > HYB_WASTE_FACTOR * hyb_w95:
+                    format = "hyb"
                 else:
-                    nnz_row = np.diff(a.indptr)
-                    hyb_w95 = max(int(np.ceil(
-                        np.percentile(nnz_row, 95))), 1)
-                    if int(nnz_row.max()) > HYB_WASTE_FACTOR * hyb_w95:
-                        format = "hyb"
-                    else:
-                        format = "ell"
+                    format = "ell"
 
     if format == "dia":
         offsets, diags = _to_dia(a)
@@ -360,14 +285,9 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
             y = ell_matvec(cols, vals, x)
             return y.at[trows].add(tvals * x[tcols])
     elif format == "psell":
-        from . import pallas_psell as ps
+        from . import psell as ps
         # the solver's n_pad stays 128-aligned; the PSELL view pads
-        # further to whole chunks internally and trims on the way out.
-        # Uniform-W XLA formulation (make_psell_matvec_xla): measured
-        # faster than the Mosaic tile kernel, which pays ~2 us/tile of
-        # one-hot build cost + 0.8 us/step overhead (docs/PERF.md
-        # round-5); the Mosaic kernel stays available via
-        # make_psell_matvec for future Mosaic generations.
+        # further to whole chunks internally and trims on the way out
         pk = ps.pack_psell_uniform(a, n_pad=-(-n_pad // ps.CHUNK)
                                    * ps.CHUNK)
         mv_k = ps.make_psell_matvec_xla(

@@ -23,7 +23,7 @@ from Eigen's direct/iterative solvers (arpackSolver.hpp + arpackmm's
 here in three flavors:
 
 * dense direct: host LU factorization once, applied on device as an
-  explicit-inverse GEMM — the MXU-optimal way to apply a precomputed
+  explicit-inverse GEMM — the matmul-shaped way to apply a precomputed
   dense solve (one matmul per application, no triangular-solve latency);
 * user-supplied ``solve`` callable (traceable) — the fully general path;
 * device iterative Krylov solves (CG/BiCGSTAB, see ops/solvers.py) for the

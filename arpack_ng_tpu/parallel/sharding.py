@@ -12,10 +12,10 @@ PARPACK/SRC/MPI/*):
   (pdsaitr.f:604-610), allreduce of norms (pdsaitr.f:575,672; overflow-safe
   two-phase pdnorm2.f:70-80), and reductions in pdgetv0.
 
-TPU-native mapping: a 1-D mesh axis ``'rows'``; V is sharded on its column
+Mapping: a 1-D mesh axis ``'rows'``; V is sharded on its column
 (state-vector) axis, resid on its only axis, H and all scalars replicated.
 The solver's contractions (``V conj @ w``, ``h @ V``, ``vdot``) lower to
-XLA all-reduces over ICI automatically under jit-with-shardings — the
+XLA all-reduces (NCCL on GPUs) automatically under jit-with-shardings — the
 explicit MPI_ALLREDUCE call sites of the reference become compiler-inserted
 psums at exactly the same algebraic locations.
 """
@@ -37,7 +37,7 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     """1-D device mesh over the state-vector dimension.
 
     Multi-host: pass ``jax.devices()`` spanning all processes — the same
-    code then runs with DCN crossings handled by XLA, which is the analog
+    code then runs with cross-host transfers handled by XLA, which is the analog
     of PARPACK running one rank per node (no source change, unlike the
     reference's separate MPI/BLACS trees)."""
     devs = list(devices if devices is not None else jax.devices())

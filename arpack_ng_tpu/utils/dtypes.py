@@ -34,16 +34,14 @@ DGKS_ETA = 0.717
 #: as DGKS (SRC/dsaitr.f:656) with the threshold derived from the actual
 #: orthogonality requirement instead of the worst-case 0.717.
 SELECTIVE_SAFETY = 6.0
-# Default = 6 since round 5, from the measured margin/perf A/B on the
-# n=1M flagship (docs/PERF.md round-5 safety table): at 8 the final
-# basis defect was 1.85e-4 (46% under the sqrt(eps)=3.45e-4
-# semi-orthogonality bar) at 21.5 Gnnz/s; at 6: 2.06e-4 (40% margin) at
-# 22.6; at 4: 3.42e-4 — 0.8% under the bar, NO margin — at 25.4.  6
-# keeps essentially the full margin and ~5% of the 4-setting's win;
-# 4 is the zero-headroom trap the round-4 precision bug taught us to
-# refuse.  The knob below is a measurement hatch (read at import, like
-# the other build-time hatches); values < 1 put the trigger ABOVE the
-# bar and are clamped.
+# The default of 6 keeps a margin under the sqrt(eps) semi-orthogonality
+# bar on the n=1M flagship: the final basis defect grows as the factor
+# shrinks (at 8: 1.85e-4, at 6: 2.06e-4, at 4: 3.42e-4 — 0.8% under the
+# sqrt(eps)=3.45e-4 bar, NO margin).  The defect is a property of the
+# arithmetic, not of the chip; the speed side of this trade has not been
+# measured on the GPU.  The knob below is a measurement hatch (read at
+# import, like the other build-time hatches); values < 1 put the trigger
+# ABOVE the bar and are clamped.
 import os as _os
 
 _s = _os.environ.get("ARPACK_TPU_SELECTIVE_SAFETY")

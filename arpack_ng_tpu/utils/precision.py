@@ -1,55 +1,33 @@
 """Matmul-precision pinning for the solver's traced computations.
 
-Measured round 4 (docs/PERF.md): on this TPU, XLA's DEFAULT f32 dot
-precision truncates MXU inputs toward bf16, making Gram-Schmidt
-coefficient dots wrong at ~2^-8 relative — orders of magnitude above
-the f32 rounding model every (semi-)orthogonality argument assumes.
-The symptom is GHOST Ritz values a few percent above the spectrum that
-pass their own residual bound (the basis is no longer orthonormal, so
-H stops being a projection): observed on the 2-D Laplacian flagship as
-lambda_max estimates of 8.2 (dgks) and worse (selective) vs the true
-<8.0, while the SAME code on CPU (true-f32 dots) is correct.
+XLA may evaluate a float32 contraction at reduced input precision (on an
+NVIDIA GPU the default lets a float32 product run in TF32, which keeps
+about 10 mantissa bits).  Gram-Schmidt coefficient dots computed that
+way are wrong at ~2^-11 relative — orders of magnitude above the f32
+rounding model every (semi-)orthogonality argument assumes.  The symptom
+is GHOST Ritz values a few percent above the spectrum that pass their
+own residual bound (the basis is no longer orthonormal, so H stops being
+a projection): on the 2-D Laplacian flagship, lambda_max estimates above
+the true bound of 8.
 
 Fix: every solver-critical traced function is built under
 ``jax.default_matmul_precision('highest')`` — the contractions involved
 are all bandwidth-bound (GEMV-shaped CGS passes, (ncv, ncv) reduced
-ops, one rotation GEMM per restart), so the extra MXU passes are free
-in wall-clock terms on a memory-bound solver.  User operators keep the
+ops, one rotation GEMM per restart), so full-precision arithmetic costs
+no wall-clock time on a memory-bound solver.  User operators keep the
 precision the user traced them with (the context only wraps library
 code paths; anything the operator closure does inherits it during the
 library trace, matching how the reference links against full-precision
-BLAS).
+BLAS).  ``chip_smoke.py`` checks for ghost values on the GPU.
 """
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 
-#: matmul precision for solver contractions.  'highest' = full f32
-#: fidelity (the correctness default); 'high' (bf16_3x, input error
-#: ~2^-21) is numerically sufficient for every sqrt(eps_f32)-class
-#: orthogonality bound and can be selected via
-#: ARPACK_TPU_MATMUL_PRECISION for measurement.  'default' reproduces
-#: the ghost-Ritz failure — never use it.
-LEVEL = os.environ.get("ARPACK_TPU_MATMUL_PRECISION", "highest")
-
-#: accepted overrides.  'default' (and typos) silently reinstate the
-#: ghost-Ritz failure mode, so anything outside this set is rejected at
-#: import — a measurement override left in the environment must not be
-#: able to corrupt a production solve without a trace.
-_VALID_LEVELS = ("high", "highest")
-if LEVEL not in _VALID_LEVELS:
-    import warnings
-
-    warnings.warn(
-        f"ARPACK_TPU_MATMUL_PRECISION={LEVEL!r} is not in "
-        f"{_VALID_LEVELS}: the DEFAULT f32 matmul precision on TPU "
-        "truncates MXU inputs toward bf16 and produces ghost Ritz "
-        "values (docs/PERF.md round-4); falling back to 'highest'.",
-        RuntimeWarning, stacklevel=2)
-    LEVEL = "highest"
+#: matmul precision for solver contractions
+LEVEL = "highest"
 
 
 def hiprec(fn):

@@ -1,4 +1,4 @@
-"""Solver statistics: the TPU-native equivalent of arpack-ng's ``stat.h``.
+"""Solver statistics: the JAX equivalent of arpack-ng's ``stat.h``.
 
 The reference keeps a ``/timing/`` Fortran common block of op counters
 (``nopx, nbx, nrorth, nitref, nrstrt``) and per-phase wall-clock timers
@@ -121,7 +121,7 @@ class SolverStats:
         t = self.timers
         lines = [
             "==========================================",
-            "= Implicitly-restarted Arnoldi  (TPU)    =",
+            "= Implicitly-restarted Arnoldi  (JAX)    =",
             "= Version arpack_ng_tpu                  =",
             "==========================================",
             f"Total number update iterations             = {self.n_iter}",

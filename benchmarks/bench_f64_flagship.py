@@ -1,21 +1,17 @@
-"""Flagship-scale float64 point (round-3 verdict item #6/#7): one n=1M
-f64 fused-symmetric row next to the f32 flagship, completing the
-precision-parity story (the reference's native precision is double;
-on this TPU f64 is EMULATED — docs/PERF.md round-2 measured ~8.8x f32
-per-cycle cost at n=65,536; this measures the same ratio at the full
-flagship scale).
+"""Flagship-scale float64 point on one GPU: one n=1M f64 fused-symmetric
+row next to the f32 flagship (the reference's native precision is
+double; on an H100 f64 is native, so bytes alone predict about 2x the
+f32 per-cycle cost).
 
 Usage: python benchmarks/bench_f64_flagship.py [--small]
 """
 from __future__ import annotations
 
 import argparse
-import os
-import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import _env  # noqa: E402
 
 from run_all import bench_sym  # noqa: E402
 
@@ -25,20 +21,7 @@ def main():
     ap.add_argument("--small", action="store_true")
     args = ap.parse_args()
     import jax
-    if args.small:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
-    else:
-        jax.config.update("jax_enable_x64", True)
-        try:
-            jax.config.update("jax_compilation_cache_dir",
-                              "/root/repo/.jax_cache")
-            jax.config.update("jax_persistent_cache_min_entry_size_bytes",
-                              -1)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                              1)
-        except Exception:
-            pass
+    jax = _env.setup(args.small)
 
     nx = 128 if args.small else 1024
     n = nx * nx

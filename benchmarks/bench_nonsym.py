@@ -1,28 +1,20 @@
-"""Hybrid non-symmetric driver on TPU: per-cycle cost of the host/device
-split (real problems on a complex-incapable backend must use this path).
+"""Non-symmetric drivers on one GPU: per-cycle cost of the fused real
+device loop (``--fused``) or of the hybrid host/device split.
 
 Measures wall per restart cycle for the dnsimp-class 2-D convection-
 diffusion operator at n ~ 1M, f32, ncv=32 — comparable to bench.py's
 symmetric fused number to quantify the host-sync overhead that remains
 after the single-batched-readback optimization (core/iram.py)."""
-import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import _env  # noqa: E402
 
 
 def main():
-    import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        pass
+    jax = _env.setup("--small" in sys.argv)
 
     import jax.numpy as jnp
     from arpack_ng_tpu import models

@@ -1,28 +1,24 @@
-"""Thick (Krylov-Schur-class) vs implicit restart under the round-3 design.
+"""Thick (Krylov-Schur-class) vs implicit restart on one GPU.
 
-Round 1 measured thick restarts LOSING (20.3 vs 15.3 ms/cycle) — but that
-was with the 2-D basis layout and full-CGS (dgks) reorthogonalization.
-Both have since changed (3-D per-row-tiled V, selective reorth default),
-and the two schemes stress different things: the implicit restart chases
+The two schemes stress different things: the implicit restart chases
 an np-step QR bulge through H and rotates V by a dense (ncv, ncv) Q,
-while the thick restart rotates by an (ncv, nev_eff) slab and rebuilds H
-as arrowhead.  Re-measure under the production configuration.
+while the thick restart rotates by an (ncv, nev_eff) slab and
+re-tridiagonalizes the kept block.  Measured under the production
+configuration (selective reorth).
 
-Protocol: chained `_multi` windows with a data-dependent scalar readback
-(docs/PERF.md measurement protocol); warmup window excluded.
+Protocol: chained `_multi` windows, each ended by a host readback of a
+data-dependent scalar; warmup window excluded.
 
 Usage: python benchmarks/bench_restart.py [--nx 1024] [--cycles 30]
 """
 from __future__ import annotations
 
 import argparse
-import os
-import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import _env  # noqa: E402
 
 
 def bench(restart: str, nx: int, ncv: int, nev: int, cycles: int):
@@ -59,13 +55,10 @@ def main():
     ap.add_argument("--ncv", type=int, default=32)
     ap.add_argument("--nev", type=int, default=8)
     ap.add_argument("--cycles", type=int, default=30)
+    ap.add_argument("--small", action="store_true",
+                    help="CPU sanity run")
     args = ap.parse_args()
-
-    try:
-        from arpack_ng_tpu import enable_compile_cache
-        enable_compile_cache(".jax_cache")
-    except Exception:
-        pass
+    _env.setup(args.small)
 
     print(f"| restart | ms/cycle | cycles | matvecs | reorth events |")
     print(f"|---|---|---|---|---|")

@@ -1,8 +1,8 @@
-"""Scale points beyond n=1M for the flagship fused symmetric solve
-(round-3 verdict #9): n = 4.2M and n = 16.8M, f32 and bf16 storage,
-with the HBM capacity model.
+"""Scale points beyond n=1M for the flagship fused symmetric solve on one
+GPU: n = 4.2M and n = 16.8M, f32 and bf16 storage, with the HBM capacity
+model.
 
-Capacity model (v5e, 16 GB HBM): the fused solver's live set is
+Capacity model: the fused solver's live set is
 V (ncv * n_pad * itemsize, donated in place across cycles) + a handful
 of n-vectors (resid, b_resid, v_j, w, r ~ 6 * n * 4 B transient) +
 O(ncv^2) noise.  At n = 16.8M, ncv = 32: V_f32 = 2.15 GB,
@@ -14,13 +14,11 @@ Usage: python benchmarks/bench_scale.py [--small]
 from __future__ import annotations
 
 import argparse
-import os
-import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import _env  # noqa: E402
 
 
 def bench_one(nx, ncv, nev, storage, cycles, reorth="dgks"):
@@ -59,15 +57,7 @@ def main():
     args = ap.parse_args()
 
     import jax
-    if args.small:
-        jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        pass
+    jax = _env.setup(args.small)
 
     ncv, nev = 32, 8
     sizes = [64, 128] if args.small else [1024, 2048, 4096]
@@ -78,8 +68,8 @@ def main():
         n = nx * nx
         cycles = 12 if nx >= 4096 else 20
         # dgks f32/bf16 rows (same algorithm at every n, apples-to-apples)
-        # + the PRODUCTION configuration (selective reorth + event
-        # kernels, round 5) to show the flagship path scales
+        # + the PRODUCTION configuration (selective reorth) to show the
+        # flagship path scales
         combos = [(None, "dgks", "f32 dgks"),
                   ("bfloat16", "dgks", "bf16 dgks"),
                   (None, "selective", "f32 PRODUCTION")]

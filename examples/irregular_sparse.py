@@ -1,9 +1,7 @@
-"""Irregular-sparsity eigensolve through ``from_scipy(format='auto')``
-— the round-5 PSELL path (docs/PERF.md round-5): a FEM-class matrix
-with no usable diagonal structure solves at memory-competitive
-throughput on TPU via panel-tiled one-hot contractions (on CPU 'auto'
-keeps the gather formats; 'psell' is pure XLA and can be requested
-explicitly anywhere).
+"""Irregular-sparsity eigensolve through ``from_scipy(format='auto')``:
+a FEM-class matrix with no usable diagonal structure goes to the gather
+formats (ELL/HYB); the panel-tiled one-hot PSELL form (ops/psell.py) is
+pure XLA and can be requested explicitly with ``format='psell'``.
 
 The reference analog is a user feeding an arbitrary CSR matrix through
 the ido loop (TESTS/dnsimp.f:192-194) or

@@ -1,6 +1,5 @@
-"""Non-normal single-precision eigensolve with f64 validation
-(round-5 productization of the pseudospectrum guidance,
-docs/PERF.md round-4): on a strongly convective operator, f32
+"""Non-normal single-precision eigensolve with f64 validation: on a
+strongly convective operator, f32
 residual-converged Ritz values can sit OUTSIDE the true spectrum while
 genuinely meeting their residual bound — the operator's
 eps_f32-pseudospectrum.  ``eigs(..., validate='f64')`` re-applies the

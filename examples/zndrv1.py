@@ -16,12 +16,8 @@ from arpack_ng_tpu import models
 def main(nx=16):
     import jax
 
-    # Some TPU runtimes cannot execute complex-dtype math at all
-    # (docs/PERF.md backend caveat).  Complex dtypes also want float64
-    # reduced precision, which TPUs emulate — so run this driver's
-    # complex path on CPU, exactly like the test suite does.  On such
-    # backends, `at.ops.realify.eigs_realified` runs genuinely-complex
-    # problems through the REAL device drivers instead.
+    # The driver runs on CPU, exactly like the test suite does (its
+    # complex128 reduced precision wants float64).
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 

@@ -1,7 +1,7 @@
 /* arpack_tpu.h — C ABI for the native reduced-space kernels of the
  * arpack_ng_tpu framework (the ICB/arpack.h analog of the reference:
  * a stable C interface over the numerical core, here covering the
- * replicated NCV-sized host subproblem that partners the TPU device code).
+ * replicated NCV-sized host subproblem that partners the device code).
  *
  * All matrices are row-major.  Integer width follows the reference's
  * INTERFACE64/a_int switch (arpackdef.h.in:6-44): 64-bit by default

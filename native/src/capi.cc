@@ -1,4 +1,4 @@
-// Full-solver C ABI: the ICB (Xsaupd_c/Xseupd_c) analog for the TPU
+// Full-solver C ABI: the ICB (Xsaupd_c/Xseupd_c) analog for the JAX
 // framework, covering all four dtypes s/d/c/z plus stat/debug control and
 // checkpoint dump/restart — the surface of ICB/arpack.h:10-21,
 // stat_c.h:12-16 and debug_c.h:6-9.  The reference exposes Fortran through
@@ -14,7 +14,7 @@
 // trips make that the documented SLOW path (the same serialization the
 // reference's ido loop imposes); the concrete-matrix entry points
 // (dense and CSR, standard/generalized/shift-invert, Ritz or Schur
-// vectors) are the TPU-speed surface.
+// vectors) are the device-speed surface.
 
 #include "arpack_tpu_solver.h"
 

@@ -1,6 +1,6 @@
 /* C-ABI test: the icb_arpack_c.c analog (TESTS/icb_arpack_c.c: diagonal
  * matrix, largest eigenvalues, checks values and convergence count) —
- * extended over the full round-2 surface: s/d/c/z dtypes, CSR input,
+ * extended over the full surface: s/d/c/z dtypes, CSR input,
  * shift-invert, Schur option, stat_c/debug_c analogs, and checkpoint
  * dump/restart. */
 #include <math.h>

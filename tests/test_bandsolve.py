@@ -2,7 +2,7 @@
 
 The reference factors ``A - sigma*M`` with banded LU and applies banded
 triangular solves (EXAMPLES/BAND/dsband.f:399-463, dgbtrf at :463); these
-tests pin the TPU-native replacement (ops/bandsolve.py) to the same
+tests pin the device replacement (ops/bandsolve.py) to the same
 results at the same O(n*b) memory scaling: direct solve parity vs scipy
 ``solve_banded``, indefinite interior shifts, the automatic fallback to
 host pivoted LU when pivotless reduction breaks down, complex shifts

@@ -3,7 +3,7 @@
 The reference ships five .mtx matrices and sweeps solver configs over them
 (EXAMPLES/MATRIX_MARKET/arpackmm.sh); SuiteSparse-style variety is left to
 users.  This corpus generates the structure classes that matter for the
-TPU import policy (dense / DIA / RCM+DIA / gather-ELL) and checks, for
+import policy (dense / DIA / RCM+DIA / gather-ELL / HYB) and checks, for
 each: (a) the auto-chosen structure is the expected one, (b) converged
 eigenpairs pass the independent scipy-matvec residual oracle
 (arpackSolver.hpp:297-323 strategy).

@@ -1,5 +1,5 @@
 """Mixed-precision basis storage (storage_dtype): narrow V reads + wide
-accumulation — the TPU-native capability with no reference equivalent
+accumulation — a capability with no reference equivalent
 (reference is fixed-precision per s/d/c/z variant).  Accuracy floor is
 ~ ||A|| * eps(storage_dtype)."""
 import jax.numpy as jnp

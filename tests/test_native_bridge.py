@@ -401,3 +401,31 @@ class TestSolveMatvec:
         ret = nb.solve_matvec(json.dumps({"dtype": "z", "n": 10, "k": 2}),
                               0, 0)
         assert ret["info"] == -9997
+
+    def test_runs_on_default_backend(self, monkeypatch):
+        """The matrix-free path solves on the process's own JAX backend:
+        it must not switch ``jax_platforms`` (no hidden CPU)."""
+        import ctypes
+        import json
+
+        import jax
+        from arpack_ng_tpu import native_bridge as nb
+        seen = []
+        real_update = jax.config.update
+
+        def spy(name, value):
+            seen.append(name)
+            return real_update(name, value)
+
+        monkeypatch.setattr(jax.config, "update", spy)
+        n, k = 120, 2
+        cb, addr = self._tridiag_callback(n, ctypes.c_double)
+        opt = json.dumps({"dtype": "d", "symmetric": True, "n": n,
+                          "k": k, "which": "LA", "ncv": 12,
+                          "maxiter": 2000, "tol": 1e-10, "rvec": False})
+        ret = nb.solve_matvec(opt, addr, 0)
+        assert ret["info"] == 0 and ret["nconv"] >= k
+        assert "jax_platforms" not in seen
+        vals = np.sort(np.frombuffer(ret["vals_re"], np.float64)[:k])
+        analytic = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, n + 1) / (n + 1))
+        np.testing.assert_allclose(vals, np.sort(analytic)[-k:], rtol=1e-8)
